@@ -1,6 +1,6 @@
 """Wide-BVH (8-ary) build + traversal tests.
 
-Oracles (VERDICT round 1, item 1): the bvh backend must match the brute
+Oracles: the bvh backend must match the brute
 backend hit-for-hit on >=10k-triangle scenes; leaf coverage must be an
 exact partition of the primitive range.
 """
@@ -80,8 +80,8 @@ def test_bvh_matches_brute_any():
 def test_bvh_terrain_parity_and_auto_backend():
     scene = terrain_scene(20_000)
     assert scene.bvh is not None
-    # auto now picks the packet-cluster backend at scale (round 3); the
-    # wide BVH stays available explicitly
+    # auto picks the packet-cluster backend at scale; the wide BVH stays
+    # available explicitly
     assert intersect._backend(scene, IntersectorConfig()) == "fcluster"
     rng = np.random.default_rng(23)
     n = 1024

@@ -109,7 +109,7 @@ def test_fcluster_grads_match_brute():
 
 
 def test_backend_errors_without_accel_arrays():
-    """ADVICE round 2: forcing an accel backend on a scene without the
+    """Forcing an accel backend on a scene without the
     arrays must raise a clear error, not an AttributeError."""
     import pytest
 

@@ -1,4 +1,4 @@
-"""A/B oracles for the round-3 initial-pass fast paths (VERDICT r3 §9).
+"""A/B oracles for the initial-pass fast paths.
 
 1. `_closest_emissive_visible` vs the reference's plain
    closest-hit-must-be-emissive rule (brdfSampleLight,

@@ -1,4 +1,4 @@
-"""Tightened statistical oracles (VERDICT round 1, item 6).
+"""Tightened statistical oracles.
 
 The reference's evaluation currency is 4-digit image-mean agreement
 between unbiased variants (BASELINE.md: MIS 1.22169 vs ReSTIR 1.2221)

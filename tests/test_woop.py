@@ -1,4 +1,4 @@
-"""MXU (Woop-transform) intersection backend must agree with the
+"""Woop-transform (woop_mxu) intersection backend must agree with the
 Möller-Trumbore brute-force baseline."""
 
 import jax

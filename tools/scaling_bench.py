@@ -4,7 +4,7 @@ hosts").
 
 Runs on a virtual CPU mesh (no multi-chip hardware in this environment),
 so it measures the *overhead* the sharded program adds — halo exchange,
-collective scheduling, shard_map partitioning — not real ICI speedup:
+collective scheduling, shard_map partitioning — not real multi-GPU speedup:
 all N virtual devices share the same host cores, so total compute is
 constant and the ideal sharded walltime equals the single-device
 walltime. Efficiency := t_1 / t_N (1.0 = sharding adds nothing).
@@ -111,4 +111,7 @@ if __name__ == "__main__":
     ap.add_argument("--frames", type=int, default=8)
     ap.add_argument("--devices", type=int, default=8)
     args = ap.parse_args()
+    from tpu_restir import compile_cache
+
+    compile_cache.enable()
     print(json.dumps(measure(args.res, args.frames, args.devices)))

@@ -1,6 +1,6 @@
-"""tpu-restir: a TPU-native ReSTIR direct-illumination progressive path tracer.
+"""tpu-restir: a ReSTIR direct-illumination progressive path tracer in JAX.
 
-Brand-new JAX/XLA/Pallas implementation with the capabilities of the
+JAX/XLA/Pallas implementation, run on NVIDIA GPUs, with the capabilities of the
 reference CPU renderer Tonz24/restir-embree (see SURVEY.md for the
 structural analysis this build follows). All render state is explicit
 pytrees of arrays; every pass is a pure function; parallelism is

@@ -5,11 +5,11 @@ arrays (SURVEY.md §2.3 "Rebuild answer" for Embree):
 
 1. **Morton clusters** (`build_clusters`): triangles sorted by Morton code
    of their centroid and chunked into fixed-size clusters with AABBs.
-   Traversal (render.intersect backend "cluster") is TPU-shaped: a chunk
-   of coherent rays tests all cluster AABBs with dense VPU ops, then
-   scans clusters, lax.cond-skipping any cluster no ray in the chunk
-   touches; surviving clusters are intersected on the MXU via the Woop
-   matmul formulation. Culling without pointer-chasing.
+   Traversal (render.intersect backend "cluster"): a chunk of coherent
+   rays tests all cluster AABBs with dense vector ops, then scans
+   clusters, lax.cond-skipping any cluster no ray in the chunk touches;
+   surviving clusters are intersected via the Woop matmul formulation.
+   Culling without pointer-chasing.
 
 2. **BVH2** (`build_bvh2`): binned-SAH binary BVH with a classic
    per-ray stack traversal (vmapped lax.while_loop) — the asymptotically

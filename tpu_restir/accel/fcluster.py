@@ -1,13 +1,11 @@
-"""Packet-cluster intersection: the production large-scene backend.
+"""Packet-cluster intersection: a large-scene backend.
 
-TPU-first replacement for Embree's BVH traversal (reference
+A dense, statically shaped replacement for Embree's BVH traversal (reference
 pg/Intersection.h:8-113, pg/Scene.cpp:15 rtcCommitScene). Per-ray BVH
-walks are scalar-divergent pointer-chasing — the worst program shape for
-a dense vector machine (and, as round 2 showed, an XLA lockstep rewrite
-of one compiles slowly and runs slower). This backend keeps every step
-dense and statically shaped:
+walks are scalar-divergent pointer-chasing. This backend keeps every
+step dense and statically shaped:
 
-  Phase 1 — packet culling (VPU). Rays are grouped into fixed packets of
+  Phase 1 — packet culling. Rays are grouped into fixed packets of
   P consecutive rays (spatially coherent: primary rays come in scanline
   order, shadow rays aim at the same light). Each packet is summarized by
   interval bounds (origin AABB, per-axis direction interval, [tnear,
@@ -16,13 +14,12 @@ dense and statically shaped:
   traversal. Clusters are chunks of 128 triangles contiguous in BVH-leaf
   order (scene/scene.py), so their AABBs are tight.
 
-  Phase 2 — shortlist rounds (fused VPU). Each packet enumerates its
+  Phase 2 — shortlist rounds (fused). Each packet enumerates its
   passing clusters in index order, K clusters per round; a round gathers
   the K clusters' triangle rows and runs the fused Möller-Trumbore test
   + running-min reduction (XLA fuses the whole chain, so per-pair
-  intermediates never touch HBM — measured ~25G pair-tests/s on v5e,
-  which beats the Woop/MXU matmul form whose K-dim-4 outputs are
-  write-bandwidth-bound). Packets are cohort-sorted by workload and
+  intermediates need not touch device memory, unlike the Woop matmul
+  form whose K-dim-4 outputs are written out). Packets are cohort-sorted by workload and
   processed in shrinking-prefix segments with growing K, so a few
   grazing "straggler" packets don't stall the whole chunk; the done
   counters guarantee EVERY passing cluster is tested — correctness never
@@ -149,9 +146,8 @@ def _mt_rows(o, d, v0, e1, e2, tnear, tfar):
 
     Elementwise op sequence matches intersect._mt_block so fcluster hits
     reproduce the brute backend bit-for-bit; everything fuses with the
-    running-min reduction (no materialized matmul outputs — this is why
-    the MT/VPU form beats the Woop/MXU form here: K-dim-4 matmuls are
-    output-bandwidth-bound)."""
+    running-min reduction (no materialized matmul outputs, unlike the
+    Woop form whose K-dim-4 matmul outputs are written out)."""
     o = o[:, :, None, :]
     d = d[:, :, None, :]
     v0 = v0[:, None, :, :]

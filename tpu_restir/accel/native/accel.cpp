@@ -2,7 +2,7 @@
 // replacement, SURVEY.md §2.3): Morton clustering and a binned-SAH BVH2,
 // compiled to a shared library and bound via ctypes
 // (tpu_restir/accel/native/__init__.py). Host-side only — traversal runs
-// on the TPU; these builders produce the flattened arrays the device
+// on the device; these builders produce the flattened arrays the device
 // backends consume. OpenMP-parallel over triangles like the rest of the
 // host pipeline.
 

@@ -4,18 +4,19 @@ The classic per-ray BVH walk (the reference's Embree rtcIntersect1
 equivalent; structure mirrors the reference's dead hand-rolled BVH,
 pg/BVH.cpp:20-217) expressed as a fixed-stack while_loop and vmapped over
 ray batches. This is the asymptotically-right backend for very large
-scenes; for the benchmark scenes the cluster/woop MXU backends win (see
-render.intersect). Used as a correctness oracle and the large-scene
+scenes; the benchmark scenes take the backends render.intersect picks. Used as a correctness oracle and the large-scene
 fallback.
 """
 
 from __future__ import annotations
 
+from functools import partial
+
 import jax
 import jax.numpy as jnp
 import numpy as np
-from flax import struct
 
+from tpu_restir import struct
 from tpu_restir.accel.bvh import BVH2, build_bvh2
 
 _INF = np.float32(np.inf)  # np scalar: no device op at import time
@@ -52,13 +53,14 @@ def _slab1(o, d_inv, nmin, nmax, tnear, tfar):
 
 def _mt1(o, d, v0, e1, e2):
     p = jnp.cross(d, e2)
-    det = jnp.dot(e1, p)
+    dot = partial(jnp.dot, precision=jax.lax.Precision.HIGHEST)
+    det = dot(e1, p)
     inv = jnp.where(jnp.abs(det) > 1e-18, 1.0 / det, 0.0)
     tv = o - v0
-    u = jnp.dot(tv, p) * inv
+    u = dot(tv, p) * inv
     q = jnp.cross(tv, e1)
-    v = jnp.dot(d, q) * inv
-    t = jnp.dot(e2, q) * inv
+    v = dot(d, q) * inv
+    t = dot(e2, q) * inv
     ok = (jnp.abs(det) > 1e-18) & (u >= 0.0) & (v >= 0.0) & (u + v <= 1.0)
     return t, u, v, ok
 

@@ -1,13 +1,13 @@
-"""Wide (8-ary) BVH: build-by-collapse + TPU lockstep traversal.
+"""Wide (8-ary) BVH: build-by-collapse + lockstep XLA traversal.
 
-The production large-scene answer to Embree's rtcIntersect1/rtcOccluded1
+A large-scene answer to Embree's rtcIntersect1/rtcOccluded1
 (reference pg/Intersection.h:8-113; the dead hand-rolled spec at
 pg/BVH.cpp:20-217 is the minimal binary structure this widens). A binary
 BVH walk is pointer-chasing with ~1 box test per step — the worst shape
 for a vector machine. The wide BVH instead:
 
   * tests all 8 children of a node with ONE dense (R, 8) slab test —
-    VPU work amortizes the per-step gather;
+    vector work amortizes the per-step gather;
   * needs ~3x fewer sequential steps than a BVH2 walk, which matters
     because rays advance in lockstep (a batched while_loop runs until
     the slowest ray finishes);
@@ -15,9 +15,8 @@ for a vector machine. The wide BVH instead:
     stack of one entry per depth level, so re-visiting a node re-tests
     its boxes against the CURRENT best-t — free early-out culling.
 
-Traversal is pure XLA (gathers + masked vector math over ray chunks):
-per-lane HBM gathers are exactly what XLA's gather lowering does best,
-and nothing here wants the MXU. Triangles are stored leaf-contiguous
+Traversal is pure XLA (gathers + masked vector math over ray chunks,
+no matmuls). Triangles are stored leaf-contiguous
 (scene build permutes by BVH leaf order) so leaf tests index start+k
 directly with no indirection.
 """
@@ -29,8 +28,8 @@ import dataclasses
 import jax
 import jax.numpy as jnp
 import numpy as np
-from flax import struct
 
+from tpu_restir import struct
 from tpu_restir.accel.bvh import BVH2
 
 _INF = np.float32(np.inf)

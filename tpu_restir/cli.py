@@ -21,7 +21,7 @@ from tpu_restir.config import (CameraConfig, RenderConfig, RenderParams,
 
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser("tpu_restir",
-                                description="TPU-native ReSTIR renderer")
+                                description="ReSTIR renderer (JAX)")
     p.add_argument("--config", default=None,
                    help="TOML/JSON render config; explicit CLI flags "
                         "override file values")
@@ -200,6 +200,9 @@ def main(argv=None) -> int:
     parser = build_parser()
     a = parser.parse_args(argv)
     cfg = config_from_args(a, parser)
+    from tpu_restir import compile_cache
+
+    compile_cache.enable()
     if cfg.n_devices > 1:
         # multi-host: no-op single-process, initializes jax.distributed
         # when a coordinator is configured in the environment

@@ -112,22 +112,16 @@ class CameraConfig:
 class IntersectorConfig:
     """Ray-scene intersection backend selection and tiling knobs."""
 
-    # "brute" | "woop_mxu" | "cluster" | "fcluster" | "ptrace" | "bvh"
-    # | "fused" | "auto"
+    # "brute" | "woop_mxu" | "cluster" | "fcluster" | "bvh" | "fused"
+    # | "auto"
     backend: str = "auto"
-    ray_chunk: int = 1 << 18   # rays per lax.map chunk (tuned on v5e)
-    ptrace_chunk: int = 1 << 21  # ptrace: whole 1080p query in one kernel
-    # ptrace: Woop-transform MXU intersection rounds (2 matmuls/round)
-    # instead of the fused-MT VPU form; needs scene.cluster_woop (built
-    # for cluster_size == 128). Watertight-epsilon hit test. Default OFF:
-    # measured on v5e terrain100k the K=4 f32 (multi-pass) matmuls are
-    # latency-bound and 2.4x SLOWER than the fused-MT VPU rounds
-    # (closest 96 vs 39 ms, any 125 vs 56 ms) — kept as a verified
-    # alternative for hardware where small-K f32 matmuls are cheap.
-    ptrace_mxu: bool = False
+    ray_chunk: int = 1 << 18   # rays per lax.map chunk
     tri_block: int = 2048      # triangles per scan block
-    bvh_threshold: int = 4096  # auto: packet-cluster culling above this size
-    fused_max_tris: int = 512  # auto: fused Pallas kernel up to this size
+    # auto: the fused Triton kernel up to this many triangles (GPU only).
+    # On an H100 it won at 1,034 triangles; its cost grows linearly with
+    # the triangle count, which puts the crossover with the culling
+    # backends near 2,000 (PERF.md).
+    fused_max_tris: int = 2048
     packet_size: int = 256     # fcluster: rays per culling packet
     shortlist_k: int = 8       # fcluster: clusters intersected per round
     # fcluster: sort rays by (origin cell, direction) before packeting.

@@ -16,7 +16,8 @@ from functools import partial
 import jax
 import numpy as np
 import jax.numpy as jnp
-from flax import struct
+
+from tpu_restir import struct
 
 
 @partial(jax.jit, static_argnames=("radius",))

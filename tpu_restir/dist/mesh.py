@@ -1,14 +1,14 @@
 """Device mesh setup for tile-sharded rendering.
 
 The renderer's data parallelism (SURVEY.md §2.2 P6 / §5.8): pixel rows
-shard over a 1-D mesh; scene/BVH/light tables replicate in HBM. This is
-the TPU-native replacement for the reference's OpenMP scanline loops.
+shard over a 1-D mesh; scene/BVH/light tables replicate in device
+memory. This replaces the reference's OpenMP scanline loops.
 
 Multi-host: `init_distributed()` brings up jax.distributed (one process
-per host, standard TPU-pod launch: every process runs the same program
-and `jax.devices()` shows the global device set). The 1-D row mesh then
-spans all hosts; halo ppermutes between row-neighbors ride ICI, and the
-gradient psum crosses hosts via the usual XLA collectives. Failure
+per host: every process runs the same program and `jax.devices()` shows
+the global device set). The 1-D row mesh then spans all hosts; halo
+ppermutes between row-neighbors and the gradient psum are XLA
+collectives (NCCL on GPUs, over NVLink within a host). Failure
 recovery is restart-from-checkpoint (SURVEY.md §5.3/§5.4): all renderer
 state is an array pytree (io/checkpoint.py), so a respawned job resumes
 the accumulation.
@@ -31,7 +31,7 @@ def init_distributed(coordinator_address: str | None = None,
     No-ops when already initialized or when running single-process with
     no coordinator configured (the common single-host case). Arguments
     default to the standard JAX cluster-environment auto-detection
-    (TPU pods, GKE, Slurm)."""
+    (e.g. Slurm); without a detected cluster pass all three."""
     global _initialized
     if _initialized:
         return

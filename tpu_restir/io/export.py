@@ -9,22 +9,37 @@ numbers directly comparable.
 from __future__ import annotations
 
 import os
+import struct
+import zlib
 from typing import Optional
 
 import numpy as np
 
 
-def save_png(path: str, img) -> None:
-    """img: (H, W, 3) float in [0, 1] -> RGBA PNG (as the reference writes
-    4-channel output via stb_image_write)."""
-    from PIL import Image
+def _png_chunk(tag: bytes, data: bytes) -> bytes:
+    return (struct.pack(">I", len(data)) + tag + data
+            + struct.pack(">I", zlib.crc32(tag + data)))
 
+
+def save_png(path: str, img) -> None:
+    """img: (H, W, 3) float in [0, 1] -> 8-bit RGBA PNG (as the reference
+    writes 4-channel output via stb_image_write). Encoded with zlib:
+    filter type 0 on every scanline."""
     arr = np.asarray(img)
     byte = (np.clip(arr, 0.0, 1.0) * 255.0).astype(np.uint8)
+    h, w = byte.shape[:2]
     rgba = np.concatenate(
-        [byte, np.full(byte.shape[:2] + (1,), 255, np.uint8)], axis=-1)
+        [byte, np.full((h, w, 1), 255, np.uint8)], axis=-1)
+    rows = np.concatenate([np.zeros((h, 1), np.uint8),
+                           rgba.reshape(h, w * 4)], axis=1)
+    # IHDR: width, height, bit depth 8, colour type 6 (RGBA), default
+    # compression / filter / no interlace
+    ihdr = struct.pack(">IIBBBBB", w, h, 8, 6, 0, 0, 0)
     os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
-    Image.fromarray(rgba, "RGBA").save(path)
+    with open(path, "wb") as f:
+        f.write(b"\x89PNG\r\n\x1a\n" + _png_chunk(b"IHDR", ihdr)
+                + _png_chunk(b"IDAT", zlib.compress(rows.tobytes(), 6))
+                + _png_chunk(b"IEND", b""))
 
 
 def _vec3(v) -> str:

@@ -1,7 +1,7 @@
-"""MXU ray-triangle intersection via per-triangle affine (Woop) transforms.
+"""Matmul ray-triangle intersection via per-triangle affine (Woop) transforms.
 
-TPU-first reformulation of the intersection kernel: instead of
-per-(ray, triangle) cross products (VPU work), precompute for every
+Reformulation of the intersection test: instead of
+per-(ray, triangle) cross products, precompute for every
 triangle the affine map W that sends it to the unit triangle
 {(0,0,0),(1,0,0),(0,1,0)} with the third coordinate along the (unscaled)
 normal. Then for rays (o, d):
@@ -10,12 +10,13 @@ normal. Then for rays (o, d):
     t  = -o'_w / d'_w,   u = o'_u + t d'_u,   v = o'_v + t d'_v
     hit <=> u >= 0, v >= 0, u + v <= 1, tnear <= t <= tfar
 
-The 6 dot products per pair become two (R,4) x (4,3N) matmuls that run on
-the 128x128 systolic array at f32-highest precision — the FLOPs land on
-the MXU instead of the VPU, which is the order-of-magnitude unit on TPU.
-This makes exhaustive intersection the *fast* path for scenes up to a few
-thousand triangles (every test scene in BASELINE.json); the wide-BVH
-culls to clusters that are then intersected the same way.
+The 6 dot products per pair become two (R,4) x (4,3N) matmuls at
+Precision.HIGHEST, which keeps full float32 (no TF32 on the GPU). XLA
+writes their (R, 3N) outputs to device memory before the elementwise
+epilogue. The `woop_mxu` backend scans all triangles this way; the
+`cluster` backend intersects the clusters it does not cull the same way.
+The Woop rows are also the per-triangle table of the fused kernel
+(kernels/ray_tri.py) and of the detached-winner VJPs.
 """
 
 from __future__ import annotations
@@ -61,7 +62,7 @@ def _pack(m: jnp.ndarray) -> jnp.ndarray:
 def intersect_block(o, d, w_packed, tnear, tfar):
     """Rays (C,3) x packed triangles (4, 3B) -> t, u, v, ok of shape (C,B).
 
-    Two MXU matmuls + elementwise epilogue.
+    Two matmuls + elementwise epilogue.
     """
     c = o.shape[0]
     b = w_packed.shape[1] // 3

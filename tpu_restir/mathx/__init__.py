@@ -50,24 +50,17 @@ def take_rows(table: jnp.ndarray, idx: jnp.ndarray,
     """Row select `table[idx]` (vertex attributes, material columns,
     light tables; millions of indices into a small table).
 
-    History: rounds 1-3 routed small tables through a one-hot MXU matmul
-    on the premise that XLA's gather moves ~one element per cycle on
-    TPU. Re-measured on this stack (v5e, round 4) the premise is stale:
-    the PLAIN gather is 3.7x faster than the one-hot even at 36 rows
-    (4.7 vs 17.2 ms for 2M x 25ch) and stays ~5-22 ms up to 100k rows —
-    the one-hot operand's HBM round trip dominates, and at ~1k-row
-    tables (the many-lights scene's per-light materials) the chunked
-    one-hot made the initial pass 10x slower. Default is therefore the
-    gather; the one-hot survives behind mxu_max_rows > 0 for A/B.
+    The default is the plain gather. A one-hot matmul form (the one-hot
+    operand makes a round trip through device memory) stays behind
+    mxu_max_rows > 0 for A/B; its speed on the GPU is not measured.
 
     table: (T, C) float32; idx: any integer shape -> idx.shape + (C,).
 
-    Differentiable in `table`: the gather's transpose is a scatter-add,
-    which XLA serializes badly when millions of indices collide into a
-    few rows (material tables) — the custom VJP computes the table
-    cotangent as T masked row-sums for small tables instead (measured:
-    the XLA scatter-add transpose cost the whole Cornell backward ~60 ms
-    at T=4).
+    Differentiable in `table`: the gather's transpose is a scatter-add
+    in which millions of indices collide into a few rows (material
+    tables) — the custom VJP computes the table cotangent as T masked
+    row-sums for small tables instead. Which form is faster on the GPU
+    is not measured.
     """
     t, _c = table.shape
     if t > mxu_max_rows:

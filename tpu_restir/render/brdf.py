@@ -5,7 +5,7 @@ The reference dispatches materials through C++ virtuals
 plus a parallel set of static G-buffer variants used by ReSTIR
 (pg/MaterialPhong.cpp:122-222). Here both APIs are branchless SoA
 functions: every family is evaluated with dense vector ops and the result
-is selected by `mat_type` — the TPU-native form of virtual dispatch.
+is selected by `mat_type` — virtual dispatch as data.
 
 Conventions match the reference exactly:
 * `d` is the incident ray direction (unit, pointing INTO the surface).
@@ -19,9 +19,8 @@ from __future__ import annotations
 
 import jax
 import jax.numpy as jnp
-from flax import struct
 
-from tpu_restir import mathx
+from tpu_restir import mathx, struct
 from tpu_restir.mathx.special import calc_i_m
 from tpu_restir.render import sampling
 from tpu_restir.scene.materials import MatType, VertexType

@@ -12,9 +12,8 @@ from __future__ import annotations
 import jax
 import jax.numpy as jnp
 import numpy as np
-from flax import struct
 
-from tpu_restir import mathx, rng
+from tpu_restir import mathx, rng, struct
 from tpu_restir.config import CameraConfig
 from tpu_restir.render import sampling
 
@@ -90,7 +89,8 @@ def generate_rays_at(cam: Camera, cfg: CameraConfig, frame_seed, ys, xs):
     dx = xs.astype(jnp.float32) + jitter[..., 0] - w / 2.0
     dy = h / 2.0 - (ys.astype(jnp.float32) + jitter[..., 1])
     d_c = jnp.stack([dx, dy, -jnp.broadcast_to(cam.focal, dx.shape)], axis=-1)
-    d_w = mathx.normalize(jnp.einsum("ij,...j->...i", cam.inv_view_dir, d_c))
+    d_w = mathx.normalize(jnp.einsum("ij,...j->...i", cam.inv_view_dir, d_c,
+                                     precision=jax.lax.Precision.HIGHEST))
     o = jnp.broadcast_to(cam.pos, d_w.shape)
     return o, d_w
 

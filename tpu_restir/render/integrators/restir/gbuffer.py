@@ -11,9 +11,8 @@ from __future__ import annotations
 
 import jax
 import jax.numpy as jnp
-from flax import struct
 
-from tpu_restir import mathx
+from tpu_restir import mathx, struct
 from tpu_restir.render import camera as cam_mod, intersect
 from tpu_restir.scene.envmap import sky_radiance
 from tpu_restir.scene.materials import (MatType,  # noqa: F401

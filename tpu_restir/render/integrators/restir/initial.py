@@ -81,20 +81,17 @@ def _closest_emissive_visible(scene, o, d, tnear, cfg):
     the scene query entirely."""
     import jax
 
+    from tpu_restir.kernels import ray_tri
     from tpu_restir.render.intersect import (Hit, _closest_chunk,
                                              _run_chunked)
     p = cfg.params
     idx = scene.lights.tri_idx
     e = idx.shape[0]
-    from tpu_restir.kernels import ray_tri
-    if (scene.woop is not None and e <= 1024
-            and (jax.default_backend() != "cpu" or ray_tri.INTERPRET)):
-        # fused Pallas kernel over a subset "scene view" (its Woop rows
-        # live in SMEM): measured 33 ms vs 442 ms for the XLA brute scan
-        # at E=1000 x 2M rays — the (chunk, E) Möller-Trumbore
-        # intermediates spill to HBM at this width. Gate at 1024: the
-        # kernel's (T,12) f32 SMEM table is only measured to E=1000
-        # (48 KB); above that the brute scan is the validated path
+    if scene.woop is not None and (jax.default_backend() == "gpu"
+                                   or ray_tri.INTERPRET):
+        # fused Pallas-Triton kernel over a subset "scene view": the XLA
+        # brute scan puts (chunk, E) Möller-Trumbore intermediates in
+        # device memory, the kernel keeps them in registers
         sub = scene.replace(tri_v=scene.tri_v[idx], woop=scene.woop[idx])
         shape = o.shape[:-1]
         n = int(np.prod(shape, dtype=np.int64)) if shape else 1

@@ -3,12 +3,10 @@
 The reference reads neighbor G-buffer elements and reservoirs through
 per-field random access (GBuffer::getAt, pg/GBufferElement.h:44-57;
 reservoir indexing in spatialReusePass, pg/ReSTIRIntegrator.cpp:334-478).
-A literal translation issues one XLA gather per field per tap; on TPU
-those gathers dominate the whole frame (measured: ~90% of spatial-pass
-device time at 1080p). TPU-native answer: concatenate every per-pixel
-reuse field into a single channel-packed f32 image once per pass, then
-serve ALL taps with one flat row gather — rows of 16/32 f32 are a fast,
-DMA-friendly gather shape.
+A literal translation issues one XLA gather per field per tap. Instead,
+concatenate every per-pixel reuse field into a single channel-packed f32
+image once per pass, then serve ALL taps with one flat row gather: a
+32-channel row is 128 contiguous bytes per tap, a coalesced read.
 
 Channel layout (full, 32 = GB_CH + RES_CH):
   G-buffer (19): pos 0:3, normal 3:6, diffuse 6:9, specular 9:12,
@@ -23,9 +21,8 @@ contains no specular-lobed type (reuse_slim): the tap consumers
 (evaluate_p_hat at a neighbor/reprojected surface, neighbor rejection,
 WRS resampling) read emission only as an is-emissive flag, never read a
 neighbor's w_sum, and — with every material Lambert/Normal — never read
-specular/shininess/inv_i_m. The windowed gather and its scatter
-transpose are take-count-bound per channel (docs/PERF_NOTES.md), so 8
-fewer channels is a direct 25% cut of the spatial pass's dominant cost.
+specular/shininess/inv_i_m. The gather and its scatter-add transpose
+move bytes per channel, so 8 fewer channels move 25% fewer bytes.
   G-buffer (12): pos 0:3, normal 3:6, diffuse 6:9, emissive flag 9,
                  depth 10, mat_type 11
   Reservoir (12): point 0:3, normal 3:6, l_i 6:9, valid 9, w 10,

@@ -21,10 +21,10 @@ from tpu_restir.render.integrators.restir.gbuffer import GBuffer
 from tpu_restir.render.integrators.restir.reservoir import LightSample
 
 # p_hat is evaluated O(M) times per frame; storing each call's shading
-# intermediates for the backward pass is pure HBM traffic. Remat policy:
+# intermediates for the backward pass is pure device-memory traffic. Remat policy:
 # save ONLY the occlusion booleans (1 byte/pixel; their kernel must not
 # rerun in the backward — visibility is detached anyway) and recompute
-# the cheap VPU math from the already-live gb/sample inputs.
+# the cheap vector math from the already-live gb/sample inputs.
 _SAVE_OCCLUSION = jax.checkpoint_policies.save_only_these_names("occlusion")
 
 

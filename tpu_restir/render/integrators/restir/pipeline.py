@@ -18,9 +18,8 @@ from __future__ import annotations
 
 import jax
 import jax.numpy as jnp
-from flax import struct
 
-from tpu_restir import rng
+from tpu_restir import rng, struct
 from tpu_restir.dist import halo as halo_mod
 from tpu_restir.render.integrators.restir import gbuffer as gb_mod
 from tpu_restir.render.integrators.restir import reservoir as rsv
@@ -132,14 +131,10 @@ def restir_step(scene, cam, cfg, frame_seed, state: RestirState, frame_ctr,
         return early(res, gb)
 
     if r.do_spatial_reuse:
-        # static payload-row offset of output row 0 for the windowed
-        # gather kernel: 0 unsharded, halo for ppermute-extended strips,
-        # None (dynamic) for the all-gather fallback
-        ext_top = None if use_gather else (halo if axis_name else 0)
         for i in range(r.spatial_pass_count):
             res = spatial_pass(frame_seed, i, scene, gb, res, cfg, ys, xs,
                                gb_ext=gb_ext, res_ext=extend(res),
-                               ext_row0=ext_row0, ext_top=ext_top)
+                               ext_row0=ext_row0)
     if stop == "spatial":
         return early(res, gb)
 

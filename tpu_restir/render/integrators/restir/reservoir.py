@@ -11,7 +11,8 @@ from __future__ import annotations
 
 import jax
 import jax.numpy as jnp
-from flax import struct
+
+from tpu_restir import struct
 
 
 class LightSample(struct.PyTreeNode):

@@ -35,8 +35,8 @@ from tpu_restir.render.sampling import disk_int_from_uniform
 
 def spatial_pass(frame_seed, pass_idx: int, scene, gb: gb_mod.GBuffer,
                  res_in: rsv.Reservoir, cfg, ys, xs, *,
-                 gb_ext=None, res_ext=None, ext_row0=0,
-                 ext_top=0) -> rsv.Reservoir:
+                 gb_ext=None, res_ext=None,
+                 ext_row0=0) -> rsv.Reservoir:
     p = cfg.params
     r = cfg.restir
     h, w = cfg.camera.height, cfg.camera.width
@@ -68,36 +68,13 @@ def spatial_pass(frame_seed, pass_idx: int, scene, gb: gb_mod.GBuffer,
         cand_gy.append(jnp.clip(ys + offi[..., 1], 0, h - 1))
 
     # one packed payload + ONE gather for all neighbor taps (candidate 0
-    # is the identity tap: use the center buffers directly). Single-chip
-    # tile-aligned images take the Pallas windowed-gather kernel (the
-    # offsets are bounded by sqrt(radius) — reference disk quirk,
-    # SURVEY.md §2.5); everything else falls back to an XLA row gather.
-    import math
-
-    from tpu_restir.kernels import local_gather as lg
-
+    # is the identity tap: use the center buffers directly)
     slim = pk.reuse_slim(scene.materials)
     payload = pk.pack_reuse(gb_ext, res_ext, slim)    # (ext_h, w, 32|24)
     tap_ys = jnp.stack([local_row(cand_gy[i], ext_row0, ext_h)
                         for i in range(1, n_cand)])
     tap_xs = jnp.stack(cand_gx[1:])
-    r_bound = int(math.floor(math.sqrt(max(r.spatial_reuse_radius, 0.0))))
-    # the Pallas windowed gather serves both the same-shape payload
-    # (ext_top=0) and halo-extended strips (ext_top=halo, a static int);
-    # all-gathered fallbacks have a traced row offset (ext_top=None) and
-    # take the XLA row gather
-    if (ext_top is not None
-            and ext_h == shape[0] + 2 * ext_top
-            and lg.supports(shape[0], w, r_bound)):
-        # offsets are truncated disk samples of radius sqrt(radius_cfg):
-        # dy^2+dx^2 <= floor(radius_cfg); lets the backward scatter skip
-        # impossible square-corner offset combos
-        taps = lg.gather_local(payload, tap_ys, tap_xs, r_bound,
-                               top=ext_top,
-                               disk_r2=int(max(r.spatial_reuse_radius,
-                                               0.0)))
-    else:
-        taps = pk.gather_packed(payload, tap_ys, tap_xs)  # (K, h, w, 32)
+    taps = pk.gather_packed(payload, tap_ys, tap_xs)  # (K, h, w, 32|24)
     gbc = pk.gb_ch(slim)
     gbs = [gb] + [pk.unpack_gb(taps[i - 1, ..., :gbc], gb, slim)
                   for i in range(1, n_cand)]

@@ -99,8 +99,8 @@ class Renderer:
                 self._restir_step = make_sharded_restir_step(self._mesh,
                                                              cfg)
             else:
-                self._restir_step = jax.jit(
-                    partial(restir_step), static_argnames=("cfg",))
+                self._restir_step = jax.jit(restir_step,
+                                            static_argnames=("cfg",))
 
     def update_config(self, cfg: RenderConfig):
         """Swap render knobs mid-run (the reference's live ImGui edits,
@@ -222,8 +222,7 @@ class Renderer:
                     from tpu_restir.render.integrators.restir.pipeline \
                         import restir_step as _rs
                     self._profile_steps[st] = (
-                        v, jax.jit(partial(_rs),
-                                   static_argnames=("cfg",)))
+                        v, jax.jit(_rs, static_argnames=("cfg",)))
         fc = jnp.asarray(self.frame_ctr)
         prev_t = 0.0
         out = None

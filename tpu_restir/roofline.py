@@ -1,187 +1,92 @@
-"""Speed-of-light accounting: FLOPs/bytes per kernel, MFU, roofline.
+"""Speed-of-light accounting: FLOPs/bytes per kernel, roofline share.
 
 The reference has no performance model at all (SURVEY.md §6: its record
-is wall-clock sidecar files). For a TPU renderer the interesting
-question per kernel is where it sits against the chip's two ceilings:
+is wall-clock sidecar files). Here the question per kernel is where it
+sits against the device's two ceilings: float32 arithmetic (the
+intersection and shading math is plain f32, outside the tensor cores)
+and device-memory bandwidth for streamed buffers.
 
-    compute ceiling  — VPU f32 for the intersection/shading math
-                       (the MXU only matters for the one-hot row-select
-                       lookups and the Woop matmul form),
-    memory ceiling   — HBM bandwidth for streamed buffers.
-
-Peaks below are TPU v5e (one chip) figures: 197 TFLOP/s bf16 MXU,
-394 TOP/s int8, HBM ~819 GB/s. The VPU figure is derived, not published:
-8 sublanes x 128 lanes x 8 ALUs x ~0.94 GHz ~= 7.7 Tops/s f32 upper
-bound; measured elementwise streams on this chip sustain about half
-that, so MFU numbers here use the 3.85 T figure and are labeled
-"vpu_est". All functions are pure Python over static shapes — they are
-trace-time models, not device counters (the device-side cross-check is
-the instrumented query log in tpu_restir.render.intersect).
+Peaks come from one table keyed by `device_kind` as JAX reports it. A
+device missing from the table is an error: there is no default. All
+functions are pure Python over static shapes — trace-time models, not
+device counters (the device-side cross-check is the instrumented query
+log in tpu_restir.render.intersect).
 """
 
 from __future__ import annotations
 
-from dataclasses import dataclass, field
+from dataclasses import dataclass
 from typing import Dict, List, Optional
 
-# --- TPU v5e single-chip ceilings -----------------------------------------
-HBM_GBPS = 819.0          # GB/s
-MXU_BF16_TFLOPS = 197.0   # TFLOP/s
-VPU_F32_TOPS_EST = 3.85   # Top/s, conservative measured-elementwise est.
+# Published dense peaks per device. Source: NVIDIA H100 Tensor Core GPU
+# data sheet, SXM5 part (rates at the full 700 W power limit; a card
+# capped lower runs below them).
+PEAKS: Dict[str, Dict[str, float]] = {
+    "NVIDIA H100 80GB HBM3": {
+        "f32_tflops": 67.0,     # float32 outside the tensor cores
+        "tf32_tflops": 495.0,   # tensor cores, TF32
+        "hbm_gbps": 3350.0,     # HBM3, GB/s
+    },
+}
 
-# --- per-pair-test cost model (fused Möller-Trumbore, cluster_trace) ------
-# cross products (2x6) + dots (4x5) + reciprocal + compares/selects
-MT_FLOPS_PER_PAIR = 60.0
-# winner extraction + running-min fold, amortized per pair
-REDUCE_FLOPS_PER_PAIR = 15.0
+# --- per-pair-test cost model (fused Woop test, kernels/ray_tri) ----------
+# 3 affine rows (~18 FMA) + divide + compares/selects
+WOOP_FLOPS_PER_PAIR = 40.0
+
+
+def device_peaks(device_kind: str) -> Dict[str, float]:
+    """Peak table entry for a device; KeyError for an unknown device."""
+    try:
+        return PEAKS[device_kind]
+    except KeyError:
+        raise KeyError(f"no peak figures for device_kind {device_kind!r}; "
+                       f"known: {sorted(PEAKS)}") from None
 
 
 @dataclass
 class KernelSpec:
-    """One kernel invocation's static work model."""
+    """One kernel invocation's static work model (f32, no tensor cores)."""
 
     name: str
-    flops: float            # total floating ops (VPU unless mxu=True)
-    bytes_hbm: float        # HBM bytes moved (read + write)
-    mxu: bool = False
+    flops: float            # total float32 ops
+    bytes_hbm: float        # device-memory bytes moved (read + write)
 
-    @property
-    def intensity(self) -> float:
-        """Arithmetic intensity, FLOP/byte."""
-        return self.flops / max(self.bytes_hbm, 1.0)
+    def sol_time_s(self, device_kind: str) -> float:
+        """Speed-of-light time: max of compute- and bandwidth-limited."""
+        pk = device_peaks(device_kind)
+        return max(self.flops / (pk["f32_tflops"] * 1e12),
+                   self.bytes_hbm / (pk["hbm_gbps"] * 1e9))
 
-    @property
-    def ridge(self) -> float:
-        """Ridge-point intensity of the relevant ceiling (FLOP/byte)."""
-        peak = (MXU_BF16_TFLOPS if self.mxu else VPU_F32_TOPS_EST) * 1e12
-        return peak / (HBM_GBPS * 1e9)
+    def bound(self, device_kind: str) -> str:
+        pk = device_peaks(device_kind)
+        compute = self.flops / (pk["f32_tflops"] * 1e12)
+        memory = self.bytes_hbm / (pk["hbm_gbps"] * 1e9)
+        return "compute" if compute >= memory else "memory"
 
-    @property
-    def bound(self) -> str:
-        return "compute" if self.intensity >= self.ridge else "memory"
-
-    def sol_time_s(self) -> float:
-        """Speed-of-light time: max of compute-limited and BW-limited."""
-        peak = (MXU_BF16_TFLOPS if self.mxu else VPU_F32_TOPS_EST) * 1e12
-        return max(self.flops / peak, self.bytes_hbm / (HBM_GBPS * 1e9))
-
-    def report(self, measured_s: Optional[float] = None) -> str:
-        sol = self.sol_time_s()
-        line = (f"{self.name}: {self.flops/1e9:.2f} GFLOP, "
-                f"{self.bytes_hbm/1e6:.1f} MB, AI={self.intensity:.1f} "
-                f"FLOP/B ({self.bound}-bound, ridge {self.ridge:.1f}), "
-                f"SoL {sol*1e3:.2f} ms")
+    def report(self, device_kind: str,
+               measured_s: Optional[float] = None) -> str:
+        sol = self.sol_time_s(device_kind)
+        line = (f"{self.name}: {self.flops / 1e9:.2f} GFLOP, "
+                f"{self.bytes_hbm / 1e6:.1f} MB, "
+                f"{self.bound(device_kind)}-bound, SoL {sol * 1e3:.3f} ms")
         if measured_s is not None and measured_s > 0:
-            pct = 100.0 * sol / measured_s
-            peak = (MXU_BF16_TFLOPS if self.mxu
-                    else VPU_F32_TOPS_EST) * 1e12
-            mfu = 100.0 * self.flops / measured_s / peak
-            line += (f", measured {measured_s*1e3:.2f} ms = "
-                     f"{pct:.0f}% of SoL, {mfu:.0f}% "
-                     f"{'MXU' if self.mxu else 'vpu_est'} util")
+            line += (f", measured {measured_s * 1e3:.3f} ms = "
+                     f"{100.0 * sol / measured_s:.1f}% of the published "
+                     "peak roofline")
         return line
 
 
-def ptrace_query_spec(name: str, n_rays: int, clusters_visited: int,
-                      block: int, packet: int = 256) -> KernelSpec:
-    """Work model for one ptrace query (kernels/cluster_trace.py).
-
-    clusters_visited: total shortlist entries actually traversed (sum of
-    per-packet counts, or the watermark-limited effective rounds for
-    closest-hit). Each visited cluster costs a (block x packet) fused MT
-    tile plus one (block, 128)-lane f32 DMA.
-    """
-    pairs = clusters_visited * block * packet
-    flops = pairs * (MT_FLOPS_PER_PAIR + REDUCE_FLOPS_PER_PAIR)
-    bytes_hbm = (
-        clusters_visited * block * 128 * 4        # cluster block DMAs
-        + n_rays * 8 * 4                          # ray channels in
-        + n_rays * 4 * 4                          # t/u/v/tri out
-    )
-    return KernelSpec(name=name, flops=flops, bytes_hbm=bytes_hbm)
-
-
-def phase1_spec(name: str, n_rays: int, n_clusters: int,
-                packet: int = 256, slices: int = 8) -> KernelSpec:
-    """Work model for the dense culling phase (build_shortlists)."""
-    rp = -(-n_rays // packet)
-    pairs = rp * n_clusters
-    flops = (pairs * (150.0 + 6.0 * slices)       # interval + swept boxes
-             + n_rays * 60.0)                     # packet bounds
-    # key/shortlist/entry + sort traffic, ~5 (Rp, C) arrays
-    bytes_hbm = pairs * 4 * 5 + n_rays * 8 * 4
-    return KernelSpec(name=name, flops=flops, bytes_hbm=bytes_hbm)
-
-
-def shading_spec(name: str, n_pixels: int, flops_per_pixel: float,
-                 channels: int) -> KernelSpec:
-    """Elementwise shading/reservoir pass model: channels in+out."""
-    return KernelSpec(name=name, flops=n_pixels * flops_per_pixel,
-                      bytes_hbm=n_pixels * channels * 4 * 2)
-
-
-# Windowed-gather throughput constant: the Pallas neighbor gather
-# (kernels/local_gather.py) is bound by its per-tile take_along_axis
-# count, not FLOPs or HBM. Calibrated on v5e from the round-4
-# measurement: 45 ms for 1080p x 5 taps x 32 ch x r=5 ->
-# 2 takes x 11 rows x 5 taps x 32 ch x 2025 tiles / 45 ms.
-TAKE_TILE_OPS_PER_S = 158e6
-
-
-def gather_spec(name: str, n_pixels: int, taps: int, channels: int,
-                r_bound: int) -> KernelSpec:
-    """Work model for the windowed neighbor gather: take-count-bound.
-    The 'flops' figure counts take_along_axis (8,128)-tile ops at the
-    calibrated TAKE rate (encoded by scaling to VPU-equivalent flops so
-    KernelSpec's ceiling math applies); bytes = payload window reads +
-    tap writes."""
-    tiles = n_pixels / 1024.0
-    takes = 2.0 * (2 * r_bound + 1) * taps * channels * tiles
-    # express the take bound as equivalent VPU flops: rate ratio
-    eq_flops = takes * (VPU_F32_TOPS_EST * 1e12 / TAKE_TILE_OPS_PER_S)
-    bytes_hbm = (n_pixels * channels * 4            # window reads (≈1x)
-                 + n_pixels * taps * channels * 4)  # tap outputs
-    return KernelSpec(name=name, flops=eq_flops, bytes_hbm=bytes_hbm)
-
-
-def phat_spec(name: str, n_pixels: int, n_evals: int) -> KernelSpec:
-    """Elementwise p_hat evaluation model (phat.evaluate_p_hat without
-    the occlusion query): ~220 VPU flops/pixel (BRDF dispatch + geometry
-    terms) over ~24 channels of sample+surface inputs + 1 output."""
-    return KernelSpec(name=name, flops=n_pixels * 220.0 * n_evals,
-                      bytes_hbm=n_pixels * 25 * 4 * n_evals)
-
-
-def fused_query_spec(name: str, n_rays: int, n_tris: int) -> KernelSpec:
+def fused_query_spec(name: str, n_rays: int, n_tris: int,
+                     closest: bool = True) -> KernelSpec:
     """Work model for the fused small-scene kernel (kernels/ray_tri):
-    every ray tests every (padded) triangle from SMEM."""
+    every ray tests every triangle; 32 B of ray data in, 16 B (closest)
+    or 4 B (any) out per ray. Any-hit's early exit makes this an upper
+    bound on its work."""
     pairs = float(n_rays) * n_tris
-    flops = pairs * (MT_FLOPS_PER_PAIR + REDUCE_FLOPS_PER_PAIR)
-    return KernelSpec(name=name, flops=flops,
-                      bytes_hbm=n_rays * 12 * 4.0)
-
-
-@dataclass
-class FrameModel:
-    """Accumulates per-kernel specs for a frame; prints a roofline table."""
-
-    kernels: List[KernelSpec] = field(default_factory=list)
-
-    def add(self, spec: KernelSpec) -> None:
-        self.kernels.append(spec)
-
-    def total_sol_s(self) -> float:
-        return sum(k.sol_time_s() for k in self.kernels)
-
-    def report(self, measured_frame_s: Optional[float] = None) -> str:
-        lines = [k.report() for k in self.kernels]
-        sol = self.total_sol_s()
-        tail = f"frame SoL {sol*1e3:.1f} ms"
-        if measured_frame_s:
-            tail += (f"; measured {measured_frame_s*1e3:.1f} ms = "
-                     f"{100.0*sol/measured_frame_s:.0f}% of SoL")
-        lines.append(tail)
-        return "\n".join(lines)
+    out_bytes = 16 if closest else 4
+    return KernelSpec(name=name, flops=pairs * WOOP_FLOPS_PER_PAIR,
+                      bytes_hbm=n_rays * (32.0 + out_bytes)
+                      + n_tris * 48.0)
 
 
 def summarize_query_log(log: List[Dict]) -> Dict:

@@ -35,7 +35,12 @@ def load_hdr(path: str):
 
     if path.lower().endswith(".pfm"):
         return read_pfm(path)
-    import imageio.v2 as imageio
+    try:
+        import imageio.v2 as imageio
+    except ImportError as e:
+        raise ImportError(
+            f"loading the environment image {path!r} needs the 'imageio' "
+            "package, which is not installed (PFM files need nothing)") from e
 
     img = np.asarray(imageio.imread(path), np.float32)
     if img.ndim == 2:

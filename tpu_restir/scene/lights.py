@@ -1,6 +1,6 @@
 """Emissive-triangle light sampling: area-weighted CDF.
 
-TPU-native equivalent of the reference's TriangleCDF
+Array-program equivalent of the reference's TriangleCDF
 (pg/TriangleCDF.cpp:8-57): the CDF is a device array searched with
 vectorized jnp.searchsorted instead of std::lower_bound per sample, so a
 whole frame's light picks happen in one gather. The key identity is kept:
@@ -13,9 +13,8 @@ from __future__ import annotations
 import jax
 import jax.numpy as jnp
 import numpy as np
-from flax import struct
 
-from tpu_restir import mathx
+from tpu_restir import mathx, struct
 from tpu_restir.render import sampling
 
 
@@ -67,9 +66,9 @@ def pick_light_index(u, lights: EmissiveCDF):
     """CDF pick -> index into the light list (not the scene tri list).
 
     method='compare_all' turns the per-ray binary search into one dense
-    (rays, lights) compare-sum that fuses on the VPU — measured 1.5 ms
-    vs 111 ms for the default scan lowering at 2M rays x 1000 lights on
-    v5e; the O(rays*lights) form is gated to modest light counts."""
+    (rays, lights) compare-sum that fuses with its consumer; the
+    O(rays*lights) form is gated to modest light counts. The gate at
+    8192 lights is a starting point, not measured on the GPU."""
     method = "compare_all" if lights.count <= 8192 else "scan"
     k = jnp.searchsorted(lights.cdf, u, side="left", method=method)
     return jnp.clip(k, 0, lights.count - 1)
@@ -93,7 +92,7 @@ def light_point_from_uniforms(u3, scene):
     k = pick_light_index(u3[..., 0], lights)
     w = sampling.triangle_barycentrics_from_uniforms(u3[..., 1:3])  # (..., 3)
     # packed per-LIGHT table (L is tiny): verts 0:9, vertex normals 9:18,
-    # emission 18:21, scene tri index 21 — one MXU row-select per frame
+    # emission 18:21, scene tri index 21 — one row-select per frame
     li = lights.tri_idx
     nl = li.shape[0]
     packed = jnp.concatenate([

@@ -46,11 +46,17 @@ def _load_image(path: str, srgb: bool) -> Optional[np.ndarray]:
             from tpu_restir.scene.envmap import load_hdr
 
             return load_hdr(path)
+        except ImportError:
+            raise
         except Exception:
             return None
     try:
         from PIL import Image
-
+    except ImportError as e:
+        raise ImportError(
+            f"loading the LDR texture {path!r} needs the 'Pillow' package "
+            "(import PIL), which is not installed") from e
+    try:
         img = np.asarray(Image.open(path).convert("RGB"),
                          np.float32) / 255.0
     except Exception:

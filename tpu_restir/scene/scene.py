@@ -2,7 +2,7 @@
 
 Replaces the reference's Scene/Surface/Triangle/Vertex object graph +
 Embree RTCScene (pg/Scene.cpp, pg/surface.cpp, pg/triangle.cpp) with flat
-SoA arrays resident in HBM: triangle vertices, per-vertex attributes,
+SoA arrays resident in device memory: triangle vertices, per-vertex attributes,
 per-triangle material ids, the emissive CDF, optional texture stack and
 environment map. Geometry is replicated across devices; pixels shard.
 """
@@ -13,8 +13,8 @@ from typing import List, Optional
 
 import jax.numpy as jnp
 import numpy as np
-from flax import struct
 
+from tpu_restir import struct
 from tpu_restir.accel.wide import BVH8Arrays
 from tpu_restir.scene.lights import EmissiveCDF, build_emissive_cdf
 from tpu_restir.scene.materials import (MaterialSpec, MaterialTable,
@@ -38,11 +38,9 @@ class SceneArrays(struct.PyTreeNode):
     materials: MaterialTable
     lights: EmissiveCDF
     # intersection acceleration
-    woop: Optional[jnp.ndarray] = None          # (N, 3, 4) MXU affine maps
+    woop: Optional[jnp.ndarray] = None          # (N, 3, 4) Woop affine maps
     cluster_min: Optional[jnp.ndarray] = None   # (C, 3) Morton-cluster AABBs
     cluster_max: Optional[jnp.ndarray] = None   # (C, 3)
-    cluster_tris: Optional[jnp.ndarray] = None  # (C, B, 128) ptrace blocks
-    cluster_woop: Optional[jnp.ndarray] = None  # (C, 8, 384) MXU blocks
     cluster_size: int = struct.field(pytree_node=False, default=0)
     bvh: Optional["BVH8Arrays"] = None          # wide BVH (accel.wide)
     # optional resources
@@ -75,7 +73,7 @@ def build_scene(
     # indices need no indirection (tpu_restir.accel.{bvh,wide}). BVH leaf
     # order is spatially coherent, so the Morton-cluster AABBs for the
     # cluster-culling backend are just per-chunk bounds of the same order.
-    cluster_min = cluster_max = cluster_tris = cluster_woop = None
+    cluster_min = cluster_max = None
     bvh8 = None
     if n_tris > cluster_size:
         from tpu_restir.accel.bvh import build_bvh2
@@ -98,13 +96,6 @@ def build_scene(
         vc = vp.reshape(n_cl, cluster_size * 3, 3)
         cluster_min = vc.min(axis=1).astype(np.float32)
         cluster_max = vc.max(axis=1).astype(np.float32)
-        from tpu_restir.kernels.cluster_trace import (build_cluster_tris,
-                                                       build_cluster_woop)
-        from tpu_restir.kernels.woop import build_woop_matrices as _bw
-
-        cluster_tris = build_cluster_tris(v, cluster_size)
-        if cluster_size == 128:
-            cluster_woop = build_cluster_woop(_bw(v), cluster_size)
     e1 = v[:, 1] - v[:, 0]
     e2 = v[:, 2] - v[:, 0]
     areas = 0.5 * np.linalg.norm(np.cross(e1, e2), axis=-1)
@@ -145,10 +136,6 @@ def build_scene(
         cluster_min=jnp.asarray(cluster_min) if cluster_min is not None
         else None,
         cluster_max=jnp.asarray(cluster_max) if cluster_max is not None
-        else None,
-        cluster_tris=jnp.asarray(cluster_tris) if cluster_tris is not None
-        else None,
-        cluster_woop=jnp.asarray(cluster_woop) if cluster_woop is not None
         else None,
         cluster_size=cluster_size if cluster_min is not None else 0,
         bvh=bvh8.to_device() if bvh8 is not None else None,

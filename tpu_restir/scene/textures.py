@@ -3,7 +3,7 @@
 The reference decodes textures with FreeImage and samples them per-pixel
 with nearest/bilinear filtering, CLAMP_TO_EDGE/REPEAT addressing, and an
 HDR float path (pg/Texture.cpp:9-194) — all at each texture's native
-resolution. TPU-shaped equivalent: every texture is zero-padded into one
+resolution. Array-program equivalent: every texture is zero-padded into one
 (T, Hmax, Wmax, 3) float32 stack (uniform shape => a whole image of
 lookups is a single gather) with per-texture (h, w) and address-mode
 side tables, so filtering math uses NATIVE dimensions. HDR images load
@@ -17,7 +17,8 @@ from typing import List, Optional, Sequence
 
 import jax.numpy as jnp
 import numpy as np
-from flax import struct
+
+from tpu_restir import struct
 
 CLAMP = 0   # TextureClamp::CLAMP_TO_EDGE (reference default, Texture.h:27)
 REPEAT = 1  # TextureClamp::REPEAT
